@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """pywfa_tpu quick tour: single-pair API, batch API, plotting, packed input.
 
-Run: python examples/demo.py   (CPU or TPU; first call compiles)
+Run: python examples/demo.py   (CPU or GPU; first call compiles)
 """
 import os
 import sys
@@ -27,7 +27,7 @@ res2 = a2("GGCCAAAAACCAAAAAA", "AAAAACCTTTTTAAAAAA", clip_cigar=True,
           min_aligned_bases_left=5, min_aligned_bases_right=5)
 print("clipped:", res2.cigartuples)
 
-# --- batched TPU API ------------------------------------------------------
+# --- batched API ----------------------------------------------------------
 from pywfa_tpu.batch import BatchWavefrontAligner
 
 rng = np.random.default_rng(0)

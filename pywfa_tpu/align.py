@@ -3,7 +3,7 @@
 Drop-in surface for `pywfa.align` (reference: /root/reference/pywfa/align.pyx):
 `WavefrontAligner`, `AlignmentResult`, `clip_cigartuples`,
 `elide_mismatches_from_cigar`, `cigartuples_to_str` — backed by this package's
-TPU-native engines instead of the C library. Single-pair calls route to the
+batched JAX engine instead of the C library. Single-pair calls route to the
 batched JAX engine (shape-bucketed, compile-cached) or the NumPy oracle;
 `pywfa_tpu.batch.BatchWavefrontAligner` is the high-throughput entry point.
 """
@@ -244,7 +244,7 @@ class WavefrontAligner:
     (reference: align.pyx:306-883)
 
     Extra (non-pywfa) kwarg: `backend` selects the engine —
-    "numpy" (scalar oracle), "jax" (batched TPU engine, single-pair
+    "numpy" (scalar oracle), "jax" (batched JAX engine, single-pair
     bucketed), or "auto".
     """
 

@@ -25,7 +25,7 @@ INT_MAX = 2**31 - 1
 # reference's lambda match-function mode (reference: wavefront_align.c:
 # 150-178 wavefront_align_lambda + wavefront_sequences.c:228-252
 # wavefront_sequences_cmp). An arbitrary per-character callback cannot run
-# inside a TPU kernel; instead each byte maps to a 32-bit class mask and
+# inside a batched device program; instead each byte maps to a 32-bit class mask and
 # two characters match iff their masks intersect -- which covers the
 # practical lambda uses (IUPAC ambiguity codes, wildcard families,
 # case-folding). Tables are registered by NAME so the static engine config

@@ -19,7 +19,7 @@ from typing import List
 
 def _build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="pywfa_tpu",
-                                 description="TPU wavefront aligner")
+                                 description="batched wavefront aligner")
     sub = ap.add_subparsers(dest="cmd", required=True)
     al = sub.add_parser("align", help="align paired FASTA/FASTQ files")
     al.add_argument("--patterns", required=True,

@@ -1,4 +1,4 @@
-"""Core constants of the TPU-native wavefront-alignment engine.
+"""Core constants of the batched wavefront-alignment engine.
 
 Semantics mirror WFA2-lib (reference: pywfa/WFA2_lib/wavefront/wfa.h:46-55,
 wavefront_offset.h:38-57) but the encodings here are our own, chosen for

@@ -1,6 +1,6 @@
 // Native host-side post-processing for pywfa_tpu.
 //
-// The TPU engine emits, per pair, a reversed stream of {X,I,D} walk ops plus
+// The device engine emits, per pair, a reversed stream of {X,I,D} walk ops plus
 // a start diagonal; expanding that into the final per-base CIGAR requires a
 // greedy match-fill against the sequences (the host half of the traceback,
 // analogous to WFA2-lib's pcigar unpack re-deriving matches by comparing

@@ -5,7 +5,7 @@ algorithm with the full WFA2-lib feature surface: all five distance models,
 end-to-end / ends-free spans, score-only / full-CIGAR scopes, and the complete
 heuristic cascade. It exists to (a) back the Python API with a complete,
 always-available engine and (b) serve as the ground-truth for property tests
-of the batched JAX/Pallas engine.
+of the batched JAX engine.
 
 Semantics follow WFA2-lib (citations inline, reference paths relative to
 /root/reference/pywfa/WFA2_lib/wavefront/) but the code is an independent

@@ -1,11 +1,13 @@
 """SPMD data-parallel alignment over a device mesh.
 
 The reference has no distribution story at all (one `wavefront_align` call =
-one pair on one core; see SURVEY.md §2.5). The TPU-native replacement is
-batch data-parallelism: read pairs are sharded over a 1-D (or hosts x chips)
-mesh with `jax.sharding`, every device runs the identical wavefront program
-on its shard, and the only collectives are result gathers -- scores ride ICI,
-sequences stream in pre-sharded.
+one pair on one core; see SURVEY.md §2.5). The batched replacement is
+batch data-parallelism: read pairs are sharded over a 1-D device mesh with
+`jax.sharding`, every device runs the identical wavefront program on its
+shard, and the only collectives are result gathers of the small per-pair
+meta arrays; sequences stream in pre-sharded. The mesh follows the batch
+axis alone: it assumes no device topology (cards of one host joined all
+to all, or hosts across a network, look the same to it).
 """
 from __future__ import annotations
 
@@ -46,8 +48,8 @@ def sharded_align_batch(cfg: E.EngineConfig, mesh: Mesh,
     batch-axis NamedSharding lets XLA run the whole score loop with zero
     cross-device communication. With gather_results=True the small
     per-pair meta arrays (status/final_s/end_k/end_off/steps) come back
-    fully replicated -- an all-gather over ICI/DCN, the only collective
-    of the data-parallel design (SURVEY §2.5 north star); the big
+    fully replicated -- an all-gather over the device interconnect, the
+    only collective of the data-parallel design (SURVEY §2.5 north star); the big
     choices tensor (if recorded) stays batch-sharded so no bulk data
     crosses the interconnect.
     """

@@ -3,7 +3,7 @@
 Analog of the reference's packed-2-bits input mode
 (`wavefront_align_packed2bits`, wavefront_align.c:150-241 +
 wavefront_sequences.c:102-140 2-bit decode): ACGT <-> {0,1,2,3}, 4 bases per
-byte, little-end first. The TPU engine consumes ASCII int8 tokens, so packed
+byte, little-end first. The engine consumes ASCII int8 tokens, so packed
 input is unpacked on ingestion; packing exists for compact storage/transport
 of large read sets.
 """

@@ -177,7 +177,7 @@ def test_endsfree_negative_match_with_xdrop():
 
 def test_lcp_table_chunked_build_identical(monkeypatch):
     """The diagonal-chunked LCP-table build (big-band / long-read path,
-    guards TPU int32 addressing limits) must equal the one-shot build."""
+    guards int32 addressing limits) must equal the one-shot build."""
     import numpy as np
     import jax.numpy as jnp
     from pywfa_tpu import batch as BT

@@ -7,6 +7,7 @@ from pywfa_tpu.align import WavefrontAligner
 from pywfa_tpu.batch import align_pairs
 from pywfa_tpu.oracle import OracleAligner
 from pywfa_tpu.utils.check import check_alignment
+from tests.corpus import set_mem_caps
 
 
 def _ont_pair(rng, n, sub=0.04, ind=0.03):
@@ -55,9 +56,7 @@ def test_4kb_remat_smoke(monkeypatch):
     pair with budgets forced far down so the remat machinery engages
     (multiple segments, snapshots, on-device replay walks), byte-equal to
     the oracle."""
-    import pywfa_tpu.batch as batch_mod
-    monkeypatch.setattr(batch_mod, "CHOICES_BYTES_CAP", 2 * 2**20)
-    monkeypatch.setattr(batch_mod, "REPLAY_CHOICES_BYTES", 8 * 2**20)
+    set_mem_caps(monkeypatch, 2 * 2**20, 8 * 2**20)
     rng = random.Random(777)
     p, t = _ont_pair(rng, 4000, sub=0.03, ind=0.02)
     api = WavefrontAligner(backend="numpy", span="end-to-end")
@@ -73,12 +72,10 @@ def test_4kb_remat_smoke(monkeypatch):
 @pytest.mark.slow
 def test_10kb_remat_matches_oracle(monkeypatch):
     """10kb ONT-style pairs through the rematerialized segmented path:
-    byte-equal to the oracle with bounded device + host memory (VERDICT r2
-    item 1). Budgets forced down so the remat machinery actually engages
+    byte-equal to the oracle with bounded device + host memory. Budgets
+    forced down so the remat machinery actually engages
     (multiple segments, snapshots, on-device replay walks)."""
-    import pywfa_tpu.batch as batch_mod
-    monkeypatch.setattr(batch_mod, "CHOICES_BYTES_CAP", 8 * 2**20)
-    monkeypatch.setattr(batch_mod, "REPLAY_CHOICES_BYTES", 32 * 2**20)
+    set_mem_caps(monkeypatch, 8 * 2**20, 32 * 2**20)
     rng = random.Random(123)
     pairs = [_ont_pair(rng, 10000, sub=0.03, ind=0.02) for _ in range(2)]
     api = WavefrontAligner(backend="numpy", span="end-to-end")
@@ -98,9 +95,7 @@ def test_10kb_remat_matches_oracle(monkeypatch):
 @pytest.mark.slow
 def test_20kb_remat_matches_oracle(monkeypatch):
     """20kb single pair, same bounded-memory path."""
-    import pywfa_tpu.batch as batch_mod
-    monkeypatch.setattr(batch_mod, "CHOICES_BYTES_CAP", 8 * 2**20)
-    monkeypatch.setattr(batch_mod, "REPLAY_CHOICES_BYTES", 32 * 2**20)
+    set_mem_caps(monkeypatch, 8 * 2**20, 32 * 2**20)
     rng = random.Random(321)
     p, t = _ont_pair(rng, 20000, sub=0.03, ind=0.02)
     api = WavefrontAligner(backend="numpy", span="end-to-end")
@@ -115,12 +110,10 @@ def test_20kb_remat_matches_oracle(monkeypatch):
 def test_50kb_remat_matches_oracle(monkeypatch):
     """50kb single pair through the segmented executor (the regime BiWFA's
     O(s) memory exists for, reference: wavefront_bialign.c:48-50): the
-    tested anchor for PARITY.md's 50 kb claim (VERDICT r4 item 4). Low
+    tested anchor for PARITY.md's 50 kb claim. Low
     divergence keeps the oracle's scalar run tractable; budgets forced
     down so segmentation engages."""
-    import pywfa_tpu.batch as batch_mod
-    monkeypatch.setattr(batch_mod, "CHOICES_BYTES_CAP", 8 * 2**20)
-    monkeypatch.setattr(batch_mod, "REPLAY_CHOICES_BYTES", 64 * 2**20)
+    set_mem_caps(monkeypatch, 8 * 2**20, 64 * 2**20)
     rng = random.Random(555)
     p, t = _ont_pair(rng, 50000, sub=0.01, ind=0.01)
     api = WavefrontAligner(backend="numpy", span="end-to-end")

@@ -5,7 +5,8 @@ Launches 2 OS processes, each with 2 virtual CPU devices, joined by
 sharded engine must produce results identical to a single-process run
 (SURVEY §4: "test multi-host with jax.distributed on CPU multi-process
 simulation"; BASELINE multi-host measurement protocol lives in
-tools/bench_multiprocess.py).
+tools/bench_multiprocess.py). CPU-only by design: the workers force the
+CPU backend, since several JAX processes must not share one GPU.
 """
 import json
 import os

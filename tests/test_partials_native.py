@@ -149,9 +149,9 @@ _DROP_GRID = [
 
 def _run_drop_grid(per_config: int):
     """Pairs across the pruning-x-drop strategy grid must complete with
-    ZERO oracle fallbacks (VERDICT r3 item 4 done-criterion: the mid-walk
-    dead-end tail is pinned at zero; a regression that sends drops back to
-    the host oracle fails loudly via the no_oracle fixture)."""
+    ZERO oracle fallbacks (the mid-walk dead-end tail is pinned at zero;
+    a regression that sends drops back to the host oracle fails loudly
+    via the no_oracle fixture)."""
     total = 0
     n_dropped = 0
     for ci, h in enumerate(_DROP_GRID):
@@ -183,7 +183,7 @@ def test_drop_corpus_10k_zero_fallback(no_oracle):
 
 def test_zdrop_big_batch_no_fallback(no_oracle):
     """A high-divergence batch with z-drop completes with zero oracle calls
-    (VERDICT r2 item 3 done-criterion, scaled down for CI)."""
+    (scaled down for CI)."""
     h = HeuristicParams(strategy=HeuristicStrategy.ZDROP, zdrop=20,
                         steps_between_cutoffs=1)
     attr = _attr(h)

@@ -8,6 +8,7 @@ import pywfa_tpu.batch as batch_mod
 from pywfa_tpu.align import WavefrontAligner
 from pywfa_tpu.batch import align_pairs
 from pywfa_tpu.oracle import OracleAligner
+from tests.corpus import set_mem_caps
 
 
 def _pairs(seed, n, lo, hi, sub=0.08, ind=0.06):
@@ -35,8 +36,7 @@ def test_segmented_matches_oneshot(monkeypatch):
     bt = [t.encode() for _, t in pairs]
     ref = align_pairs(attr, bp, bt)
     # force the remat path with tiny budgets (multiple 64-step segments)
-    monkeypatch.setattr(batch_mod, "CHOICES_BYTES_CAP", 1)
-    monkeypatch.setattr(batch_mod, "REPLAY_CHOICES_BYTES", 1)
+    set_mem_caps(monkeypatch, 1, 1)
     seg = align_pairs(attr, bp, bt)
     for i, (r, s) in enumerate(zip(ref, seg)):
         assert (r.status, r.score, r.ops) == (s.status, s.score, s.ops), i
@@ -51,8 +51,7 @@ def test_segmented_matches_oracle_divergent(monkeypatch):
     attr = api._attributes()
     bp = [p.encode() for p, _ in pairs]
     bt = [t.encode() for _, t in pairs]
-    monkeypatch.setattr(batch_mod, "CHOICES_BYTES_CAP", 1)
-    monkeypatch.setattr(batch_mod, "REPLAY_CHOICES_BYTES", 1)
+    set_mem_caps(monkeypatch, 1, 1)
     seg = align_pairs(attr, bp, bt)
     orc = OracleAligner(attr)
     for i in range(len(pairs)):
@@ -61,56 +60,26 @@ def test_segmented_matches_oracle_divergent(monkeypatch):
             (o.status, o.score, o.ops), i
 
 
-def test_step_model_runtime_calibration():
-    """The per-step watchdog model is measurement-driven (VERDICT r4 item
-    7): a recorded 4x-slower-than-model segment immediately shrinks the
-    next program's step budget ~4x; a later fast measurement relaxes it
-    only gradually (upward jumps immediate, downward smoothed)."""
-    from pywfa_tpu.attributes import validate_alignment
-    from pywfa_tpu.ops import engine as E
+def test_segmentation_follows_memory_caps(monkeypatch):
+    """Segmentation is decided by the device-memory budget alone: a
+    choices tensor over MemCaps.choices goes segmented, one under it runs
+    one-shot (and both give the same results)."""
+    calls = []
+    real = batch_mod._align_pairs_remat
 
-    attr0 = validate_alignment(
-        WavefrontAligner(backend="numpy")._attributes(), 1000, 1000)
-    cfg = E.full_config(attr0, 1024, 1024)
-    B = 8
-    saved = dict(batch_mod._STEP_CAL)
-    try:
-        batch_mod._STEP_CAL.clear()
-        est0 = batch_mod._est_step_seconds(cfg, B)
-        K0 = max(64, int(batch_mod.PROGRAM_WALL_BUDGET_S / est0))
-        # simulated measurement: 100 steps took 4x what the model's raw
-        # (safety-factor-free) prior predicts
-        raw0 = est0 / batch_mod._STEP_MODEL_SAFETY
-        batch_mod._record_step_time(cfg, B, 100, 4 * raw0 * 100)
-        est1 = batch_mod._est_step_seconds(cfg, B)
-        assert est1 >= 3.9 * est0
-        K1 = max(64, int(batch_mod.PROGRAM_WALL_BUDGET_S / est1))
-        assert K1 == 64 or K1 <= K0 // 3
-        # a subsequent fast segment must not snap the budget back up
-        batch_mod._record_step_time(cfg, B, 100, raw0 * 100)
-        est2 = batch_mod._est_step_seconds(cfg, B)
-        assert est0 < est2 < est1
-    finally:
-        batch_mod._STEP_CAL.clear()
-        batch_mod._STEP_CAL.update(saved)
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
 
-
-def test_remat_records_step_calibration(monkeypatch):
-    """A real segmented run feeds measured segment timings back into the
-    step model (>=3 segments -> at least one recorded sample)."""
-    rng = random.Random(17)
-    p = "".join(rng.choice("ACGT") for _ in range(400))
-    t = "".join(rng.choice("ACGT") for _ in range(400))  # unrelated
-    api = WavefrontAligner(backend="numpy", span="end-to-end")
-    attr = api._attributes()
-    monkeypatch.setattr(batch_mod, "CHOICES_BYTES_CAP", 1)
-    monkeypatch.setattr(batch_mod, "REPLAY_CHOICES_BYTES", 1)
-    saved = dict(batch_mod._STEP_CAL)
-    try:
-        batch_mod._STEP_CAL.clear()
-        align_pairs(attr, [p.encode()], [t.encode()])
-        assert batch_mod._STEP_CAL, "no segment timing recorded"
-        assert all(v > 0 for v in batch_mod._STEP_CAL.values())
-    finally:
-        batch_mod._STEP_CAL.clear()
-        batch_mod._STEP_CAL.update(saved)
+    monkeypatch.setattr(batch_mod, "_align_pairs_remat", spy)
+    pairs = _pairs(11, 4, 60, 100)
+    attr = WavefrontAligner(backend="numpy", span="end-to-end")._attributes()
+    bp = [p.encode() for p, _ in pairs]
+    bt = [t.encode() for _, t in pairs]
+    ref = align_pairs(attr, bp, bt)
+    assert not calls
+    set_mem_caps(monkeypatch, 1, 1)
+    seg = align_pairs(attr, bp, bt)
+    assert calls
+    for r, s in zip(ref, seg):
+        assert (r.status, r.score, r.ops) == (s.status, s.score, s.ops)

@@ -176,10 +176,9 @@ def test_verbose3_progress_lines(monkeypatch, capsys):
     import random
     from pywfa_tpu.align import WavefrontAligner
     from pywfa_tpu.attributes import SystemParams
-    import pywfa_tpu.batch as batch_mod
     from pywfa_tpu.batch import align_pairs
-    monkeypatch.setattr(batch_mod, "CHOICES_BYTES_CAP", 1)
-    monkeypatch.setattr(batch_mod, "REPLAY_CHOICES_BYTES", 1)
+    from tests.corpus import set_mem_caps
+    set_mem_caps(monkeypatch, 1, 1)
     rng = random.Random(5)
     pairs = [("".join(rng.choice("ACGT") for _ in range(200)),
               "".join(rng.choice("ACGT") for _ in range(190)))

@@ -8,7 +8,11 @@ writes SCALING_r{N}.json.
 Caveat recorded in the artifact: all simulated "hosts" share one
 machine's cores, so efficiency here validates the distributed PROTOCOL
 (global mesh, sharded inputs, gather collective, identical results), not
-real ICI/DCN scaling -- the >=85% BASELINE target needs a pod-slice run.
+real interconnect scaling.
+
+CPU-only by design (the workers force the CPU backend): a JAX process
+reserves most of a GPU's memory when it first touches it, so several
+processes must not share one card.
 
 Usage: python tools/bench_multiprocess.py [out.json]
 """
@@ -131,12 +135,9 @@ def main():
               "distributed_overhead_s = no-gather - local-only mesh "
               "(global-mesh/sync cost), device_weighted_efficiency = "
               "local-mesh time / wall under identical contention (1.0 = "
-              "the global mesh is free). The >=85% BASELINE target is an "
-              "ICI/DCN property and needs a pod-slice run. ICI "
-              "projection: the gather moves gather_bytes = 16 B/pair "
-              "(4 int32 meta arrays; e.g. 8.2 KB at B=512), so on a v5e "
-              "pod's ~45 GB/s/link ICI the collective costs ~0.2 "
-              "microseconds/batch -- the milliseconds measured here are "
+              "the global mesh is free). The gather moves gather_bytes "
+              "= 16 B/pair (4 int32 meta arrays; e.g. 8.2 KB at "
+              "B=512); the milliseconds measured here are "
               "Gloo-over-TCP loopback cost, a property of the CPU "
               "simulation, not of the collective. Overheads are clamped "
               "at 0 and flagged *_below_noise when |raw| < the point's "

@@ -13,12 +13,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=1")
 os.environ["JAX_PLATFORMS"] = "cpu"
-# CPU runs skip the persistent compile cache (XLA:CPU AOT
-# (de)serialization can segfault; see tests/conftest.py)
-os.environ["PYWFA_TPU_CACHE"] = ""
 import jax
 
 jax.config.update("jax_platforms", "cpu")
+# CPU runs skip the persistent compile cache (XLA:CPU AOT
+# (de)serialization can segfault; see tests/conftest.py)
+jax.config.update("jax_enable_compilation_cache", False)
 
 from pywfa_tpu.align import WavefrontAligner
 from pywfa_tpu.attributes import HeuristicParams

@@ -12,6 +12,10 @@ tools/bench_multiprocess.py:
 Every process builds the identical corpus (seeded) and contributes its
 local shards; results come back replicated via the gather collective, and
 each process writes its own JSON (the launcher checks process agreement).
+
+CPU-only by design: every process forces the CPU backend. A JAX process
+reserves most of a GPU's memory when it first touches it, so several
+processes must not share one card.
 """
 import json
 import os
@@ -21,14 +25,14 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-# CPU runs skip the persistent compile cache (XLA:CPU AOT
-# (de)serialization can segfault; see tests/conftest.py)
-os.environ["PYWFA_TPU_CACHE"] = ""
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=2")
 
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+# CPU runs skip the persistent compile cache (XLA:CPU AOT
+# (de)serialization can segfault; see tests/conftest.py)
+jax.config.update("jax_enable_compilation_cache", False)
 
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -101,8 +105,7 @@ def main():
 
     dt, dt_std = timed(run, "status")
 
-    # --- overhead decomposition (VERDICT r3: separate collective cost
-    # from shared-core contention) ---
+    # --- overhead decomposition ---
     # (a) no-gather twin: identical sharded computation, results left
     # batch-sharded -> dt - dt_nogather isolates the gather collective
     fn_ng = sharded_align_batch(cfg, mesh, gather_results=False)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Split the headline-bench time into LCP-build / score-loop / walk parts.
 
-Not a benchmark of record -- a diagnostic for kernel work. Run on TPU.
+Not a benchmark of record -- a diagnostic for kernel work. Run on the GPU.
 """
 import os
 import sys
@@ -51,7 +51,7 @@ def main():
         print(f"{name:28s} {dt:8.2f} ms")
         return r
 
-    # 1. LCP table build alone (the h-major Pallas builder)
+    # 1. LCP table build alone (h-major layout)
     lcp = timeit("lcp_build_hmajor",
                  lambda: E._build_lcp_table_h(cfg, pat, txt))
     print(f"  lcp table: {lcp.shape} {lcp.dtype} "

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Micro-profile one engine step's pieces on TPU (diagnostic)."""
+"""Micro-profile one engine step's pieces on the device (diagnostic)."""
 import functools
 import os
 import sys

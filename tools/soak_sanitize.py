@@ -23,12 +23,12 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-# CPU runs skip the persistent compile cache (XLA:CPU AOT
-# (de)serialization can segfault; see tests/conftest.py)
-os.environ["PYWFA_TPU_CACHE"] = ""
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+# CPU runs skip the persistent compile cache (XLA:CPU AOT
+# (de)serialization can segfault; see tests/conftest.py)
+jax.config.update("jax_enable_compilation_cache", False)
 jax.config.update("jax_enable_checks", True)
 jax.config.update("jax_debug_nans", True)
 jax.config.update("jax_debug_infs", True)
